@@ -1,9 +1,9 @@
-// Native host runtime for ikpso_tpu: scene graph, marshaling, host FK
+// Native host runtime for ikpso: scene graph, marshaling, host FK
 // oracle, and the diagnostics stream writer.
 //
 // The reference keeps its scene graph, tree->flat marshaling, host
 // forward kinematics, and experiment logging in host C++
-// (reference Node.h:37-463, Main.cpp:147-337). The TPU compute path in
+// (reference Node.h:37-463, Main.cpp:147-337). The device compute path in
 // this framework is JAX/XLA/Pallas; THIS file is the native runtime
 // around it:
 //
@@ -22,7 +22,7 @@
 //                    distance}.txt; reference Main.cpp:147-216).
 //
 // Exposed as a plain C ABI consumed by ctypes
-// (ikpso_tpu/native/__init__.py). Build: `make -C native`.
+// (ikpso/native/__init__.py). Build: `make -C native`.
 
 #include <cmath>
 #include <cstdint>
@@ -48,7 +48,7 @@ Mat3 matmul(const Mat3& a, const Mat3& b) {
 }
 
 // Rx(x) * Ry(y) * Rz(z), closed form — identical element formulas to
-// ikpso_tpu.ops.rotations.euler_xyz_to_matrix (and the reference's
+// ikpso.ops.rotations.euler_xyz_to_matrix (and the reference's
 // rotateEuler composition, matrix_operations.cuh:166-180).
 Mat3 euler_xyz(double x, double y, double z) {
   const double cx = std::cos(x), sx = std::sin(x);

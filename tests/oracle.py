@@ -5,7 +5,7 @@ fitness semantics (reference matrix_operations.cuh:123-180,
 kernel.cu:31-151) used ONLY as a test oracle: row-major 4x4 matrices
 with translation in cells (0,3),(1,3),(2,3), sequential Rx/Ry/Rz
 multiplies, full homogeneous products. The production code
-(ikpso_tpu.ops.fk) must agree with it to float tolerance.
+(ikpso.ops.fk) must agree with it to float tolerance.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from ikpso_tpu.ops.collision import chain_collides, obb_obb_intersect
-from ikpso_tpu.ops.rotations import euler_xyz_to_matrix
+from ikpso.ops.collision import chain_collides, obb_obb_intersect
+from ikpso.ops.rotations import euler_xyz_to_matrix
 
 EYE = jnp.eye(3, dtype=jnp.float32)
 
@@ -134,7 +134,7 @@ def test_empty_obstacles_never_hit():
 
 
 def test_point_obb_dist2_axis_aligned():
-    from ikpso_tpu.ops.collision import point_obb_dist2
+    from ikpso.ops.collision import point_obb_dist2
 
     c = jnp.zeros(3)
     h = jnp.asarray([1.0, 2.0, 3.0])
@@ -155,7 +155,7 @@ def test_point_obb_dist2_axis_aligned():
 
 
 def test_point_obb_dist2_rotated():
-    from ikpso_tpu.ops.collision import point_obb_dist2
+    from ikpso.ops.collision import point_obb_dist2
 
     # Unit cube rotated 45 deg about Z: the point at (sqrt(2)+1, 0, 0)
     # sits 1 unit off the rotated corner edge along X.
@@ -166,7 +166,7 @@ def test_point_obb_dist2_rotated():
 
 
 def test_segment_obb_dist2_analytic():
-    from ikpso_tpu.ops.collision import segment_obb_dist2
+    from ikpso.ops.collision import segment_obb_dist2
 
     c = jnp.zeros(3)
     h = jnp.ones(3)
@@ -197,7 +197,7 @@ def test_segment_obb_dist2_analytic():
 def test_segment_obb_dist2_matches_sampled_minimum(rng):
     # Exactness check: dense sampling of d^2(t) can only be >= the
     # bisection answer, and the two agree to f32 precision.
-    from ikpso_tpu.ops.collision import point_obb_dist2, segment_obb_dist2
+    from ikpso.ops.collision import point_obb_dist2, segment_obb_dist2
 
     n = 64
     p0 = jnp.asarray(rng.uniform(-4, 4, (n, 3)), jnp.float32)
@@ -217,12 +217,12 @@ def test_chain_collides_capsule_matches_gjk(rng):
     # The closed-form capsule collider vs the generic-support GJK twin
     # on random chains and obstacles: booleans agree away from exact
     # tangency.
-    from ikpso_tpu.ops.collision import (
+    from ikpso.ops.collision import (
         chain_collides_capsule,
         point_obb_dist2,
         segment_obb_dist2,
     )
-    from ikpso_tpu.ops.gjk import chain_collides_capsule_gjk
+    from ikpso.ops.gjk import chain_collides_capsule_gjk
 
     b, k, nobs = 256, 3, 2
     gizmo = 0.2
@@ -253,12 +253,12 @@ def test_chain_collides_capsule_matches_gjk(rng):
 def test_get_chain_collider_dispatch():
     import pytest
 
-    from ikpso_tpu.ops.collision import (
+    from ikpso.ops.collision import (
         chain_collides,
         chain_collides_capsule,
         get_chain_collider,
     )
-    from ikpso_tpu.ops.gjk import chain_collides_capsule_gjk, chain_collides_gjk
+    from ikpso.ops.gjk import chain_collides_capsule_gjk, chain_collides_gjk
 
     assert get_chain_collider("sat", "box") is chain_collides
     assert get_chain_collider("sat", "capsule") is chain_collides_capsule

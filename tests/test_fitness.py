@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ikpso_tpu.models import library
-from ikpso_tpu.models.chain import Obstacles
-from ikpso_tpu.ops import fk as fk_ops
-from ikpso_tpu.ops.fitness import (
+from ikpso.models import library
+from ikpso.models.chain import Obstacles
+from ikpso.ops import fk as fk_ops
+from ikpso.ops.fitness import (
     COLLISION_PENALTY,
     FitnessConfig,
     fitness,
@@ -144,11 +144,10 @@ def test_fitness_jits():
 def test_fitness_fk_scan_matches_unrolled():
     # FitnessConfig.fk_impl="scan" (log-depth associative-scan FK) must
     # be numerically interchangeable with the unrolled walk on a deep
-    # serial chain — the deep-chain option wired into the solver path
-    # (VERDICT r1 #7).
+    # serial chain — the deep-chain option wired into the solver path.
     import jax
 
-    from ikpso_tpu.models import library
+    from ikpso.models import library
 
     spec, problem = library.snake(10)
     batched = library.batched_problem(
@@ -169,8 +168,8 @@ def test_fitness_fk_scan_matches_unrolled():
     )
 
     # Solver end-to-end with the scan FK (jit + lax.scan compose).
-    from ikpso_tpu.pso.config import PSOConfig
-    from ikpso_tpu.pso.solver import solve
+    from ikpso.pso.config import PSOConfig
+    from ikpso.pso.solver import solve
 
     res = solve(
         spec, batched, jax.random.key(0),
@@ -184,7 +183,7 @@ def test_fitness_fk_scan_matches_unrolled():
 def test_fitness_fk_scan_rejects_trees():
     import pytest
 
-    from ikpso_tpu.models import library
+    from ikpso.models import library
 
     spec, problem = library.reference_arm()  # 3 effector children = tree
     batched = library.batched_problem(

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from ikpso_tpu.models import library
-from ikpso_tpu.models.chain import make_chain_spec
-from ikpso_tpu.ops import fk as fk_ops
+from ikpso.models import library
+from ikpso.models.chain import make_chain_spec
+from ikpso.ops import fk as fk_ops
 
 from oracle import fk_positions_oracle
 

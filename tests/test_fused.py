@@ -1,34 +1,108 @@
-"""Fused full-solve Pallas kernel (ikpso_tpu.pso.fused).
+"""PSO megakernel (ikpso.pso.fused), run by the Pallas interpreter.
 
-The TPU interpreter stubs `pltpu.prng_random_bits` to zeros, so CPU
-tests exercise the kernel's structure (init, fitness, gbest selection,
-clamping) with degenerate RNG; statistical convergence parity against
-the jnp solver is asserted on real TPU hardware only (bench.py runs
-`--impl fused` there).
+The kernel is written for the Pallas Triton route; ``interpret=True``
+runs the same kernel body on the CPU, counter-hash RNG included, so
+convergence is testable here. Replays inject the uniform stream and
+compare the whole trajectory with a numpy re-run that scores
+particles with the plain ``ops.fitness`` oracle.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
-from ikpso_tpu.models import library
-from ikpso_tpu.ops import fk as fk_ops
-from ikpso_tpu.ops.fitness import FitnessConfig
-from ikpso_tpu.pso.config import PSOConfig
-from ikpso_tpu.pso.fused import make_fused_solver
-
-INTERPRET = jax.devices()[0].platform != "tpu"
-
-
-def _interpret():
-    return pltpu.InterpretParams() if INTERPRET else False
+from ikpso.models import library
+from ikpso.ops import fk as fk_ops
+from ikpso.ops.fitness import FitnessConfig
+from ikpso.ops.fitness import fitness as jnp_fitness
+from ikpso.ops.tile_fitness import pack_swarm
+from ikpso.pso import fused
+from ikpso.pso.config import PSOConfig
+from ikpso.pso.fused import fused_solve_raw, make_fused_solver
 
 
 def _batched(problem, s):
     return library.batched_problem(
         problem, jnp.broadcast_to(problem.targets, (s,) + problem.targets.shape)
+    )
+
+
+def _swarm(spec, batched):
+    anchor_angles = fk_ops.pose_to_angles(spec, batched.pose)
+    anchor_positions = fk_ops.fk_points(spec, batched.pose, batched.origin)
+    return pack_swarm(spec, batched, anchor_angles, anchor_positions)
+
+
+def _run_injected(spec, problem, pso, fit, U, p, obstacles=None):
+    """Kernel with the injected stream ``U (1, n_draws, D, p)``."""
+    batched = _batched(problem, 1)
+    gb, gv = fused_solve_raw(
+        spec, pso, fit, _swarm(spec, batched), jnp.zeros((1, 2), jnp.uint32),
+        num_particles=p, obstacles=obstacles, uniforms=U, interpret=True,
+    )
+    return np.asarray(gb[0]), float(gv[0])
+
+
+def _replay(spec, problem, pso, fit, U, p, obstacles=None, kick=None):
+    """Numpy re-run of the kernel's trajectory on the same draws.
+
+    Returns (gbest angles, gbest fitness, saw_collision_penalty).
+    ``kick(it)`` says whether the re-kick fires at iteration ``it``.
+    """
+    from ikpso.ops.fitness import COLLISION_PENALTY
+
+    n_init, dpi = fused.draws_per_iteration(pso)
+    Un = np.asarray(U[0])
+
+    def to_pd(u):  # (D, P) -> (P, D)
+        return u.T
+
+    anchor = np.asarray(fk_ops.pose_to_angles(spec, problem.pose))
+    lo = np.asarray(spec.min_rotation[1:]).reshape(-1)
+    hi = np.asarray(spec.max_rotation[1:]).reshape(-1)
+    fit_fn = jax.jit(
+        lambda x: jnp_fitness(spec, x, problem, config=fit, obstacles=obstacles)
+    )
+    if pso.init_mode == "warm":
+        x = np.tile(anchor, (p, 1)).astype(np.float32)
+    else:
+        lo_c = np.maximum(lo, -2 * np.pi).astype(np.float32)
+        hi_c = np.minimum(hi, 2 * np.pi).astype(np.float32)
+        x = (lo_c + to_pd(Un[0]) * (hi_c - lo_c)).astype(np.float32)
+        if pso.init_mode == "hybrid":
+            x[0] = anchor
+    v = ((to_pd(Un[n_init - 1]) * 2.0 - 1.0) * pso.init_velocity_scale).astype(
+        np.float32
+    )
+    lbest = x.copy()
+    lval = np.asarray(fit_fn(jnp.asarray(x)))
+    w, c1, c2 = (np.float32(pso.inertia), np.float32(pso.cognitive),
+                 np.float32(pso.social))
+    saw_penalty = False
+    for it in range(pso.iterations):
+        gb = lbest[int(np.argmin(lval))]
+        base = n_init + dpi * it
+        u_c, u_s, u_w = to_pd(Un[base]), to_pd(Un[base + 1]), to_pd(Un[base + 2])
+        if kick is not None and kick(it):
+            v = ((to_pd(Un[base + dpi - 1]) * 2.0 - 1.0)
+                 * np.float32(pso.rekick_scale)).astype(np.float32)
+        v = w * u_w * v + c1 * u_c * (lbest - x) + c2 * u_s * (gb[None] - x)
+        x = np.clip(x + v, lo, hi).astype(np.float32)
+        f = np.asarray(fit_fn(jnp.asarray(x)))
+        saw_penalty |= bool(np.any(f >= COLLISION_PENALTY))
+        m = f < lval
+        lval = np.where(m, f, lval)
+        lbest = np.where(m[:, None], x, lbest)
+    i0 = int(np.argmin(lval))
+    return lbest[i0], float(lval[i0]), saw_penalty
+
+
+def _stream(pso, d, p, key):
+    n_init, dpi = fused.draws_per_iteration(pso)
+    return jax.random.uniform(
+        jax.random.key(key), (1, n_init + dpi * pso.iterations, d, p),
+        dtype=jnp.float32,
     )
 
 
@@ -44,8 +118,8 @@ def test_anchor_with_perfect_targets_stays_gbest():
         spec,
         pso=PSOConfig(iterations=3),
         fit=FitnessConfig(angle_weight=0.0),
-        num_particles=1024,
-        interpret=_interpret(),
+        num_particles=256,
+        interpret=True,
     )
     res = solver(batched, jax.random.key(0))
     np.testing.assert_allclose(np.asarray(res.fitness), 0.0, atol=1e-9)
@@ -55,11 +129,9 @@ def test_anchor_with_perfect_targets_stays_gbest():
 
 
 def test_fused_fitness_matches_jnp_at_anchor():
-    # gbest fitness after 0 iterations == the jnp fitness of the anchor
-    # (init evaluates fitness once; with 1 iteration and zero RNG in
-    # interpret mode the anchor remains a member of the swarm).
-    from ikpso_tpu.ops.fitness import fitness as jnp_fitness
-
+    # The anchor is a member of the warm-started swarm, so after one
+    # iteration the gbest fitness can only be <= the jnp fitness of
+    # the anchor.
     spec, problem = library.reference_arm()
     batched = _batched(problem, 2)
     fit = FitnessConfig(angle_weight=3.0, distance_weight=0.7)
@@ -67,13 +139,12 @@ def test_fused_fitness_matches_jnp_at_anchor():
         spec,
         pso=PSOConfig(iterations=1),
         fit=fit,
-        num_particles=1024,
-        interpret=_interpret(),
+        num_particles=256,
+        interpret=True,
     )
     res = solver(batched, jax.random.key(1))
     anchor_angles = fk_ops.pose_to_angles(spec, problem.pose)
     ref = float(jnp_fitness(spec, anchor_angles, problem, config=fit))
-    # gbest can only be <= the anchor fitness.
     assert np.all(np.asarray(res.fitness) <= ref + 1e-6)
 
 
@@ -82,9 +153,9 @@ def test_joint_limits_respected():
     batched = _batched(problem, 2)
     solver = make_fused_solver(
         spec,
-        pso=PSOConfig(iterations=5),
-        num_particles=1024,
-        interpret=_interpret(),
+        pso=PSOConfig(iterations=5, init_mode="uniform"),
+        num_particles=256,
+        interpret=True,
     )
     res = solver(batched, jax.random.key(2))
     lo = np.asarray(spec.min_rotation[1:]).reshape(-1)
@@ -94,393 +165,272 @@ def test_joint_limits_respected():
 
 
 def test_rejects_bad_particle_counts():
+    # Any positive count runs (the wrapper pads to a power of two);
+    # an empty swarm is refused.
+    spec, _ = library.planar_3dof()
+    for bad in (0, -128):
+        with pytest.raises(ValueError, match="num_particles"):
+            make_fused_solver(spec, num_particles=bad, interpret=True)
+
+
+# --- The counter-based RNG, evaluated as plain jnp (the kernel runs the
+# same functions on its (P,) vectors).
+
+
+def _draws(seed0=1, seed1=2, slot=0, dof=0, p=4096, p_pad=None):
+    p_pad = p_pad or p
+    skey = fused.swarm_key(jnp.uint32(seed0), jnp.uint32(seed1))
+    dkey = fused.draw_key(skey, slot)
+    return np.asarray(
+        fused.uniform(dkey, fused.lane_counters(p_pad), dof, p_pad)
+    )[:p]
+
+
+def test_counter_rng_range_and_moments():
+    u = np.concatenate([_draws(slot=s, dof=d) for s in range(4) for d in range(9)])
+    assert u.dtype == np.float32
+    assert (u >= 0.0).all() and (u < 1.0).all()
+    n = u.size
+    assert abs(u.mean() - 0.5) < 4 * np.sqrt(1 / 12 / n)
+    assert abs(u.var() - 1 / 12) < 2e-3
+    # Uniform over deciles: chi-square with 9 dof well under its 0.1%
+    # critical value (27.9).
+    counts = np.histogram(u, bins=10, range=(0, 1))[0]
+    chi2 = ((counts - n / 10) ** 2 / (n / 10)).sum()
+    assert chi2 < 27.9, chi2
+
+
+@pytest.mark.parametrize(
+    "axis", ["swarm", "iteration_slot", "particle", "dof"]
+)
+def test_counter_rng_independence(axis):
+    # Streams that differ in one coordinate of (swarm seed, draw slot,
+    # particle, dof) must be uncorrelated and must not coincide.
+    if axis == "swarm":
+        a, b = _draws(seed0=7), _draws(seed0=8)
+    elif axis == "iteration_slot":
+        a, b = _draws(slot=3), _draws(slot=4)
+    elif axis == "dof":
+        a, b = _draws(dof=0), _draws(dof=1)
+    else:
+        u = _draws(p=8192)
+        a, b = u[:-1], u[1:]  # neighbouring particles
+    r = np.corrcoef(a, b)[0, 1]
+    assert abs(r) < 4 / np.sqrt(a.size), r
+    assert np.mean(a == b) < 1e-3
+
+
+def test_counter_rng_reproducible_and_padding_invariant():
+    np.testing.assert_array_equal(_draws(slot=5, dof=2), _draws(slot=5, dof=2))
+    # A particle's draws depend on the padded width only through the
+    # DOF offset: dof 0 is identical across paddings.
+    np.testing.assert_array_equal(_draws(p=96, p_pad=128), _draws(p=96, p_pad=256))
+
+
+def test_counter_rng_in_kernel_matches_plain():
+    # The kernel consumes the shared draw functions with the documented
+    # slot layout: rebuilding its stream in plain jnp and injecting it
+    # reproduces the hash-driven solve bit for bit.
     spec, problem = library.planar_3dof()
-    with pytest.raises(ValueError):
-        solver = make_fused_solver(spec, num_particles=96, interpret=_interpret())
-        solver(_batched(problem, 1), jax.random.key(0))
-    with pytest.raises(ValueError):
-        solver = make_fused_solver(spec, num_particles=512, interpret=_interpret())
-        solver(_batched(problem, 1), jax.random.key(0))
-
-
-@pytest.mark.parametrize("nrows,seg", [(8, 2), (8, 4), (8, 8), (56, 2), (32, 4)])
-@pytest.mark.parametrize("op_name", ["add", "minimum"])
-def test_seg_rows_reduce(nrows, seg, op_name):
-    # The roll-tree segmented reduce-broadcast against a numpy segment
-    # reduction: every row must hold its aligned seg-row block's
-    # reduction after the call.
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-
-    from ikpso_tpu.pso.fused import _seg_rows_reduce
-
-    op = {"add": jnp.add, "minimum": jnp.minimum}[op_name]
-    rng = np.random.RandomState(nrows * 100 + seg)
-    x = rng.uniform(-5, 5, (nrows, 128)).astype(np.float32)
-
-    def kernel(x_ref, o_ref):
-        o_ref[...] = _seg_rows_reduce(x_ref[...], seg, op)
-
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((nrows, 128), jnp.float32),
-        interpret=_interpret(),
-    )(jnp.asarray(x))
-
-    blocks = x.reshape(nrows // seg, seg, 128)
-    want = (blocks.sum(1) if op_name == "add" else blocks.min(1))
-    want = np.repeat(want, seg, axis=0)
-    np.testing.assert_allclose(np.asarray(out), want, rtol=1e-6, atol=1e-5)
-
-
-@pytest.mark.parametrize("particles,sw", [(256, 4), (512, 2), (128, 8)])
-def test_roll_gbest_matches_scalar_gbest(particles, sw):
-    # The hot-loop gbest extraction has two implementations: per-band
-    # masked scalar reductions (the original, TPU-validated oracle)
-    # and the segmented roll-tree reduce-broadcast. On an identical
-    # injected uniform stream the two solvers must be bit-identical —
-    # min/one-hot-select are exact in both. Parametrized over band
-    # geometries: rows-per-band 2, 4, and 1 (0-, 2-, and 0/1-step
-    # roll trees over an 8-sublane tile).
-    from ikpso_tpu.ops.pallas_fitness import LANES, _pack_meta, _pack_swarm
-    from ikpso_tpu.pso.fused import fused_solve_raw
-
-    spec, problem = library.arm_7dof()
-    s = 2 * sw  # two grid tiles
-    rng = np.random.RandomState(42)
-    targets = jnp.asarray(
-        np.asarray(problem.targets) + rng.uniform(-0.3, 0.3, (s, 1, 3)),
-        jnp.float32,
-    )
-    batched = library.batched_problem(problem, targets)
-
-    pso = PSOConfig(iterations=4)  # default randomized inertia: 3 draws/iter
-    fit = FitnessConfig()
-    meta = _pack_meta(spec, fit, None, False)
-    anchor_angles = fk_ops.pose_to_angles(spec, batched.pose)
-    anchor_positions = fk_ops.fk_points(spec, batched.pose, batched.origin)
-    swarm = _pack_swarm(spec, batched, anchor_angles, anchor_positions, False)
-    limits = jnp.stack(
-        [spec.min_rotation[1:].reshape(-1), spec.max_rotation[1:].reshape(-1)]
-    )
-    seeds = jnp.zeros((s, 2), jnp.int32)
-    d = spec.dof
-    total_rows = sw * (particles // LANES)
-    n_draws = 1 + pso.iterations * 3
-    uniforms = jnp.asarray(
-        rng.uniform(0.0, 1.0, (s // sw, n_draws, d * total_rows, LANES)),
-        jnp.float32,
-    )
-
-    out = {}
-    for mode in ("scalar", "auto"):
-        out[mode] = fused_solve_raw(
-            spec, pso, fit, meta, swarm, limits, seeds,
-            particles, 0, interpret=_interpret(), uniforms=uniforms,
-            swarms_per_tile=sw, gbest_mode=mode,
-        )
-    np.testing.assert_array_equal(np.asarray(out["auto"][0]),
-                                  np.asarray(out["scalar"][0]))
-    np.testing.assert_array_equal(np.asarray(out["auto"][1]),
-                                  np.asarray(out["scalar"][1]))
-    # The run must have actually optimized something (guards against a
-    # degenerate all-zeros comparison).
-    assert np.all(np.asarray(out["auto"][1]) >= 0.0)
-    assert np.any(np.asarray(out["auto"][0]) != 0.0)
-
-
-def test_fused_replay_matches_jnp_reference():
-    # Full-solve semantic equivalence: run the kernel with an injected
-    # uniform stream, then replay the exact PSO trajectory in
-    # numpy/jnp (same draws, same update order, ops.fitness as the
-    # cost oracle). Tolerances absorb float op-order differences
-    # between the kernel's fused FK and the jnp fitness. Mirrors
-    # out/out_replay.py (TPU ad-hoc) as a permanent CPU test.
-    from ikpso_tpu.ops.fitness import fitness as jnp_fitness
-    from ikpso_tpu.ops.pallas_fitness import _pack_meta, _pack_swarm
-    from ikpso_tpu.pso.fused import fused_solve_raw
-
-    spec, problem = library.arm_7dof()
-    P, D, rows, L = 1024, spec.dof, 8, 128
-    iters = 3
-    pso = PSOConfig(iterations=iters, inertia_mode="randomized")
-    fit = FitnessConfig(angle_weight=0.0, distance_weight=0.0)
-
+    pso = PSOConfig(iterations=1, init_mode="uniform")
+    n_init, dpi = fused.draws_per_iteration(pso)
+    assert (n_init, dpi) == (2, 3)
     batched = _batched(problem, 1)
-    anchor_angles = fk_ops.pose_to_angles(spec, batched.pose)
-    anchor_positions = fk_ops.fk_points(spec, batched.pose, batched.origin)
-    meta = _pack_meta(spec, fit, None)
-    swarm = _pack_swarm(spec, batched, anchor_angles, anchor_positions)
-    limits = jnp.stack(
-        [spec.min_rotation[1:].reshape(-1), spec.max_rotation[1:].reshape(-1)]
+    seeds = jnp.asarray([[11, 22]], jnp.uint32)
+    p = 128
+    skey = fused.swarm_key(seeds[0, 0], seeds[0, 1])
+    lane_g = fused.lane_counters(p)
+    U = jnp.stack([
+        jnp.stack([
+            fused.uniform(fused.draw_key(skey, slot), lane_g, dd, p)
+            for dd in range(spec.dof)
+        ])
+        for slot in range(n_init + dpi * pso.iterations)
+    ])[None]
+    kw = dict(num_particles=p, interpret=True)
+    fit = FitnessConfig()
+    swarm = _swarm(spec, batched)
+    gh, vh = fused_solve_raw(spec, pso, fit, swarm, seeds, **kw)
+    gi, vi = fused_solve_raw(spec, pso, fit, swarm, seeds, uniforms=U, **kw)
+    np.testing.assert_array_equal(np.asarray(gh), np.asarray(gi))
+    np.testing.assert_array_equal(np.asarray(vh), np.asarray(vi))
+
+
+# --- The wrapper's shapes: interpret mode does not enforce the Triton
+# block rule, so this is the only guard before the chip.
+
+
+def _is_pow2(n):
+    return n > 0 and n & (n - 1) == 0
+
+
+@pytest.mark.parametrize(
+    "model,particles,uniforms",
+    [("arm_7dof", 128, False), ("reference_arm", 96, False),
+     ("humanoid_45dof", 512, False), ("arm_7dof", 100, True)],
+)
+def test_wrapper_block_shapes_are_powers_of_two(monkeypatch, model,
+                                                particles, uniforms):
+    spec, problem = getattr(library, model)()
+    s = 2
+    batched = _batched(problem, s)
+    seen = []
+    real = fused.pl.pallas_call
+
+    def spy(kernel, **kw):
+        seen.append(kw)
+        return real(kernel, **kw)
+
+    monkeypatch.setattr(fused.pl, "pallas_call", spy)
+    pso = PSOConfig(iterations=1)
+    U = None
+    if uniforms:
+        n_init, dpi = fused.draws_per_iteration(pso)
+        U = jnp.full((s, n_init + dpi, spec.dof, particles), 0.5, jnp.float32)
+    g, v = fused_solve_raw(
+        spec, pso, FitnessConfig(), _swarm(spec, batched),
+        jnp.zeros((s, 2), jnp.uint32), num_particles=particles,
+        uniforms=U, interpret=True,
     )
-    seeds = jnp.zeros((1, 2), jnp.int32)
-    n_draws = 1 + 3 * iters
-    U = jax.random.uniform(
-        jax.random.key(5), (1, n_draws, D * rows, L), dtype=jnp.float32
+    assert g.shape == (s, spec.dof) and v.shape == (s,)
+    (kw,) = seen
+    assert kw["grid"] == (s,)
+    specs = list(kw["in_specs"]) + list(kw["out_specs"])
+    assert len(specs) == 4 + int(uniforms)
+    for bs in specs:
+        # None dims are squeezed (the fitness block is one scalar).
+        dims = [b for b in bs.block_shape if b is not None]
+        assert all(_is_pow2(b) for b in dims), bs.block_shape
+    # The Triton route, two particles per thread, 1 to 8 warps.
+    assert kw["compiler_params"].BACKEND == "triton"
+    assert kw["compiler_params"].num_warps == min(
+        8, max(1, fused.next_pow2(particles) // 64)
     )
-    gb_k, gv_k = fused_solve_raw(
-        spec, pso, fit, meta, swarm, limits, seeds, P, 0,
-        interpret=_interpret(), uniforms=U,
-    )
-    gb_k, gv_k = np.asarray(gb_k[0]), float(gv_k[0])
 
-    Un = np.asarray(U[0])
 
-    def to_pd(u):  # (D*rows, L) -> (P, D): particle p = row*L + lane
-        return u.reshape(D, rows, L).reshape(D, P).T
-
-    anchor = np.asarray(anchor_angles[0])
-    lo = np.asarray(spec.min_rotation[1:]).reshape(-1)
-    hi = np.asarray(spec.max_rotation[1:]).reshape(-1)
-    fit_fn = jax.jit(lambda x: jnp_fitness(spec, x, problem, config=fit))
-
-    x = np.tile(anchor, (P, 1)).astype(np.float32)
-    v = ((to_pd(Un[0]) * 2.0 - 1.0) * pso.init_velocity_scale).astype(np.float32)
-    lbest = x.copy()
-    lval = np.asarray(fit_fn(jnp.asarray(x)))
-    w, c1, c2 = (np.float32(pso.inertia), np.float32(pso.cognitive),
-                 np.float32(pso.social))
-    for it in range(iters):
-        gb = lbest[int(np.argmin(lval))]
-        base = 1 + 3 * it
-        u_c, u_s, u_w = to_pd(Un[base]), to_pd(Un[base + 1]), to_pd(Un[base + 2])
-        v = w * u_w * v + c1 * u_c * (lbest - x) + c2 * u_s * (gb[None] - x)
-        x = np.clip(x + v, lo, hi).astype(np.float32)
-        f = np.asarray(fit_fn(jnp.asarray(x)))
-        m = f < lval
-        lval = np.where(m, f, lval)
-        lbest = np.where(m[:, None], x, lbest)
-    i0 = int(np.argmin(lval))
-    gb_r, gv_r = lbest[i0], float(lval[i0])
-
+def test_padded_particles_never_gbest():
+    # P=100 pads to 128 lanes. The injected stream gives the 28 padded
+    # lanes the same kind of draws as real ones, yet the result must
+    # equal a 100-particle replay: padded lanes carry +inf fitness.
+    spec, problem = library.arm_7dof()
+    p = 100
+    pso = PSOConfig(iterations=3, init_mode="uniform")
+    fit = FitnessConfig(angle_weight=0.0)
+    U = _stream(pso, spec.dof, fused.next_pow2(p), 21)
+    gb_k, gv_k = _run_injected(spec, problem, pso, fit, U, p)
+    gb_r, gv_r, _ = _replay(spec, problem, pso, fit, U[..., :p], p)
     np.testing.assert_allclose(gb_k, gb_r, atol=5e-4)
     np.testing.assert_allclose(gv_k, gv_r, rtol=1e-3, atol=1e-5)
 
 
-@pytest.mark.skipif(INTERPRET, reason="needs real TPU PRNG")
-def test_fused_converges_on_tpu():
+def test_fused_replay_matches_jnp_reference():
+    # Full-solve semantic equivalence: the kernel on an injected
+    # uniform stream vs the numpy replay scored by ops.fitness.
+    # Tolerances absorb float op-order differences between the kernel's
+    # FK and the jnp fitness.
     spec, problem = library.arm_7dof()
-    batched = _batched(problem, 8)
+    p = 256
+    pso = PSOConfig(iterations=3, inertia_mode="randomized")
+    fit = FitnessConfig(angle_weight=0.0, distance_weight=0.0)
+    U = _stream(pso, spec.dof, p, 5)
+    gb_k, gv_k = _run_injected(spec, problem, pso, fit, U, p)
+    gb_r, gv_r, _ = _replay(spec, problem, pso, fit, U, p)
+    np.testing.assert_allclose(gb_k, gb_r, atol=5e-4)
+    np.testing.assert_allclose(gv_k, gv_r, rtol=1e-3, atol=1e-5)
+
+
+def test_fused_converges_with_hash_rng():
+    # Real hash RNG (interpret mode runs it too): PSO must cut the far
+    # default target's error (~2.08 at the warm start) dramatically.
+    spec, problem = library.arm_7dof()
+    batched = _batched(problem, 4)
     solver = make_fused_solver(
         spec,
         pso=PSOConfig(iterations=30),
         fit=FitnessConfig(angle_weight=0.0),
         num_particles=1024,
+        interpret=True,
     )
     res = solver(batched, jax.random.key(0))
-    # Starting error is ~2.08; PSO must reduce it dramatically.
     assert np.median(np.asarray(res.effector_error)) < 0.1
+    # Distinct swarms draw distinct streams.
+    assert len({tuple(r) for r in np.asarray(res.angles).round(5)}) > 1
 
 
 def test_fused_replay_with_rekick_matches_reference():
-    # Same replay harness as above, but with the periodic velocity
-    # re-kick enabled (PSOConfig.rekick_interval): kick iterations
-    # must overwrite v with the (last-slot) kick draw BEFORE the
-    # velocity update, and non-kick iterations must be unaffected.
-    from ikpso_tpu.ops.fitness import fitness as jnp_fitness
-    from ikpso_tpu.ops.pallas_fitness import _pack_meta, _pack_swarm
-    from ikpso_tpu.pso.fused import fused_solve_raw
-
+    # Kick iterations must overwrite v with the (last-slot) kick draw
+    # BEFORE the velocity update; others are unaffected.
     spec, problem = library.arm_7dof()
-    P, D, rows, L = 1024, spec.dof, 8, 128
-    iters, kick_n, kscale = 4, 2, 0.7
+    p = 256
+    kick_n, kscale = 2, 0.7
     pso = PSOConfig(
-        iterations=iters, inertia_mode="randomized",
+        iterations=4, inertia_mode="randomized",
         rekick_interval=kick_n, rekick_scale=kscale,
     )
     fit = FitnessConfig(angle_weight=0.0, distance_weight=0.0)
-
-    batched = _batched(problem, 1)
-    anchor_angles = fk_ops.pose_to_angles(spec, batched.pose)
-    anchor_positions = fk_ops.fk_points(spec, batched.pose, batched.origin)
-    meta = _pack_meta(spec, fit, None)
-    swarm = _pack_swarm(spec, batched, anchor_angles, anchor_positions)
-    limits = jnp.stack(
-        [spec.min_rotation[1:].reshape(-1), spec.max_rotation[1:].reshape(-1)]
+    U = _stream(pso, spec.dof, p, 11)
+    gb_k, gv_k = _run_injected(spec, problem, pso, fit, U, p)
+    gb_r, gv_r, _ = _replay(
+        spec, problem, pso, fit, U, p,
+        kick=lambda it: it > 0 and it % kick_n == 0,
     )
-    seeds = jnp.zeros((1, 2), jnp.int32)
-    dpi = 4  # u_c, u_s, u_w, u_k
-    n_draws = 1 + dpi * iters
-    U = jax.random.uniform(
-        jax.random.key(11), (1, n_draws, D * rows, L), dtype=jnp.float32
-    )
-    gb_k, gv_k = fused_solve_raw(
-        spec, pso, fit, meta, swarm, limits, seeds, P, 0,
-        interpret=_interpret(), uniforms=U,
-    )
-    gb_k, gv_k = np.asarray(gb_k[0]), float(gv_k[0])
-
-    Un = np.asarray(U[0])
-
-    def to_pd(u):
-        return u.reshape(D, rows, L).reshape(D, P).T
-
-    anchor = np.asarray(anchor_angles[0])
-    lo = np.asarray(spec.min_rotation[1:]).reshape(-1)
-    hi = np.asarray(spec.max_rotation[1:]).reshape(-1)
-    fit_fn = jax.jit(lambda x: jnp_fitness(spec, x, problem, config=fit))
-
-    x = np.tile(anchor, (P, 1)).astype(np.float32)
-    v = ((to_pd(Un[0]) * 2.0 - 1.0) * pso.init_velocity_scale).astype(np.float32)
-    lbest = x.copy()
-    lval = np.asarray(fit_fn(jnp.asarray(x)))
-    w, c1, c2 = (np.float32(pso.inertia), np.float32(pso.cognitive),
-                 np.float32(pso.social))
-    for it in range(iters):
-        gb = lbest[int(np.argmin(lval))]
-        base = 1 + dpi * it
-        u_c, u_s, u_w = to_pd(Un[base]), to_pd(Un[base + 1]), to_pd(Un[base + 2])
-        if it > 0 and it % kick_n == 0:
-            v = ((to_pd(Un[base + 3]) * 2.0 - 1.0) * np.float32(kscale)).astype(
-                np.float32
-            )
-        v = w * u_w * v + c1 * u_c * (lbest - x) + c2 * u_s * (gb[None] - x)
-        x = np.clip(x + v, lo, hi).astype(np.float32)
-        f = np.asarray(fit_fn(jnp.asarray(x)))
-        m = f < lval
-        lval = np.where(m, f, lval)
-        lbest = np.where(m[:, None], x, lbest)
-    i0 = int(np.argmin(lval))
-    gb_r, gv_r = lbest[i0], float(lval[i0])
-
     np.testing.assert_allclose(gb_k, gb_r, atol=5e-4)
     np.testing.assert_allclose(gv_k, gv_r, rtol=1e-3, atol=1e-5)
 
 
 def test_fused_rekick_threshold_gates_kick():
-    # With rekick_threshold above every attainable fitness... no band
-    # can be below it, so every band kicks; with a threshold of 0 and
-    # perfect targets (gbest fitness exactly 0 from init), NO band may
-    # kick — and the solve must equal the rekick-free kernel
-    # bit-for-bit when fed the same per-iteration draw slots.
-    from ikpso_tpu.ops.pallas_fitness import _pack_meta, _pack_swarm
-    from ikpso_tpu.pso.fused import fused_solve_raw
-
+    # With perfect targets (gbest fitness exactly 0 from init) and a
+    # threshold of 0, NO kick may fire — the solve must equal the
+    # re-kick-free kernel bit for bit when fed the same per-iteration
+    # draws.
     spec, problem = library.arm_7dof()
-    # Targets exactly at the anchor's effectors: warm-start fitness 0.
     eff = fk_ops.effector_positions(spec, problem.pose, problem.origin)
-    problem = library.batched_problem(problem, eff[None])
-    P, D, rows, L = 1024, spec.dof, 8, 128
-    iters, kick_n = 4, 2
+    problem = problem.replace(targets=eff)
+    p, iters = 256, 4
     fit = FitnessConfig(angle_weight=0.0, distance_weight=0.0)
-
-    anchor_angles = fk_ops.pose_to_angles(spec, problem.pose)
-    anchor_positions = fk_ops.fk_points(spec, problem.pose, problem.origin)
-    meta = _pack_meta(spec, fit, None)
-    swarm = _pack_swarm(spec, problem, anchor_angles, anchor_positions)
-    limits = jnp.stack(
-        [spec.min_rotation[1:].reshape(-1), spec.max_rotation[1:].reshape(-1)]
-    )
-    seeds = jnp.zeros((1, 2), jnp.int32)
-    U3 = jax.random.uniform(
-        jax.random.key(2), (1, 1 + 3 * iters, D * rows, L), dtype=jnp.float32
-    )
-    # dpi=4 stream whose first three per-iteration slots equal U3's.
+    base = PSOConfig(iterations=iters, inertia_mode="randomized")
+    U3 = _stream(base, spec.dof, p, 2)
+    # Per-iteration-4 stream whose first three slots equal U3's.
     u4 = [U3[:, 0]]
     for it in range(iters):
         u4.extend([U3[:, 1 + 3 * it + k] for k in range(3)])
-        u4.append(jnp.full((1, D * rows, L), 0.9, jnp.float32))
+        u4.append(jnp.full((1, spec.dof, p), 0.9, jnp.float32))
     U4 = jnp.stack(u4, axis=1)
-
-    def run(pso, U):
-        gb, gv = fused_solve_raw(
-            spec, pso, fit, meta, swarm, limits, seeds, P, 0,
-            interpret=_interpret(), uniforms=U,
-        )
-        return np.asarray(gb[0]), float(gv[0])
-
-    base = PSOConfig(iterations=iters, inertia_mode="randomized")
     gated = PSOConfig(
         iterations=iters, inertia_mode="randomized",
-        rekick_interval=kick_n, rekick_threshold=0.0,
+        rekick_interval=2, rekick_threshold=0.0,
     )
     kicked = PSOConfig(
         iterations=iters, inertia_mode="randomized",
-        rekick_interval=kick_n, rekick_threshold=-1.0,
+        rekick_interval=2, rekick_threshold=-1.0,
     )
-    gb0, gv0 = run(base, U3)
-    gb1, gv1 = run(gated, U4)
+    gb0, gv0 = _run_injected(spec, problem, base, fit, U3, p)
+    gb1, gv1 = _run_injected(spec, problem, gated, fit, U4, p)
     np.testing.assert_array_equal(gb0, gb1)
     assert gv0 == gv1
-    # Sanity: the unconditional kick with the same draws does change
-    # the trajectory's particles (gbest stays the perfect anchor).
-    gb2, gv2 = run(kicked, U4)
+    # The unconditional kick changes the particles, but gbest stays
+    # the perfect anchor.
+    _, gv2 = _run_injected(spec, problem, kicked, fit, U4, p)
     assert gv2 == 0.0
 
 
 def test_fused_replay_with_obstacles_matches_jnp_reference():
-    # Replay harness with a scene box: the in-kernel SAT rejection
-    # (reference kernel.cu:104-136 GJK path, rebuilt as fused SAT)
-    # must penalize exactly the poses ops.fitness penalizes, so the
-    # whole PSO trajectory — including which particles' local bests
-    # freeze at the penalty — matches the jnp oracle.
-    from ikpso_tpu.models.chain import Obstacles
-    from ikpso_tpu.ops.fitness import COLLISION_PENALTY, fitness as jnp_fitness
-    from ikpso_tpu.ops.pallas_fitness import _pack_meta, _pack_swarm
-    from ikpso_tpu.pso.fused import fused_solve_raw
+    # The in-kernel SAT rejection must penalize exactly the poses
+    # ops.fitness penalizes, so the whole trajectory — including which
+    # local bests freeze at the penalty — matches the jnp oracle.
+    from ikpso.models.chain import Obstacles
 
     spec, problem = library.arm_7dof()
     obstacles = Obstacles.from_boxes(
         jnp.asarray([[0.9, 0.9, 0.0], [-0.8, 0.4, 0.7]], jnp.float32),
         jnp.asarray([[0.5, 0.5, 0.5], [0.6, 0.6, 0.6]], jnp.float32),
     )
-    P, D, rows, L = 1024, spec.dof, 8, 128
-    iters = 3
-    pso = PSOConfig(iterations=iters, inertia_mode="randomized")
+    p = 1024
+    pso = PSOConfig(iterations=3, inertia_mode="randomized")
     fit = FitnessConfig(angle_weight=0.0, distance_weight=0.0)
-
-    batched = _batched(problem, 1)
-    anchor_angles = fk_ops.pose_to_angles(spec, batched.pose)
-    anchor_positions = fk_ops.fk_points(spec, batched.pose, batched.origin)
-    meta = _pack_meta(spec, fit, obstacles)
-    swarm = _pack_swarm(spec, batched, anchor_angles, anchor_positions)
-    limits = jnp.stack(
-        [spec.min_rotation[1:].reshape(-1), spec.max_rotation[1:].reshape(-1)]
-    )
-    seeds = jnp.zeros((1, 2), jnp.int32)
-    U = jax.random.uniform(
-        jax.random.key(7), (1, 1 + 3 * iters, D * rows, L), dtype=jnp.float32
-    )
-    gb_k, gv_k = fused_solve_raw(
-        spec, pso, fit, meta, swarm, limits, seeds, P, obstacles.count,
-        interpret=_interpret(), uniforms=U,
-    )
-    gb_k, gv_k = np.asarray(gb_k[0]), float(gv_k[0])
-
-    Un = np.asarray(U[0])
-
-    def to_pd(u):  # (D*rows, L) -> (P, D): particle p = row*L + lane
-        return u.reshape(D, rows, L).reshape(D, P).T
-
-    anchor = np.asarray(anchor_angles[0])
-    lo = np.asarray(spec.min_rotation[1:]).reshape(-1)
-    hi = np.asarray(spec.max_rotation[1:]).reshape(-1)
-    fit_fn = jax.jit(
-        lambda x: jnp_fitness(spec, x, problem, config=fit, obstacles=obstacles)
-    )
-
-    x = np.tile(anchor, (P, 1)).astype(np.float32)
-    v = ((to_pd(Un[0]) * 2.0 - 1.0) * pso.init_velocity_scale).astype(np.float32)
-    lbest = x.copy()
-    lval = np.asarray(fit_fn(jnp.asarray(x)))
-    w, c1, c2 = (np.float32(pso.inertia), np.float32(pso.cognitive),
-                 np.float32(pso.social))
-    saw_penalty = False
-    for it in range(iters):
-        gb = lbest[int(np.argmin(lval))]
-        base = 1 + 3 * it
-        u_c, u_s, u_w = to_pd(Un[base]), to_pd(Un[base + 1]), to_pd(Un[base + 2])
-        v = w * u_w * v + c1 * u_c * (lbest - x) + c2 * u_s * (gb[None] - x)
-        x = np.clip(x + v, lo, hi).astype(np.float32)
-        f = np.asarray(fit_fn(jnp.asarray(x)))
-        saw_penalty |= bool(np.any(f >= COLLISION_PENALTY))
-        m = f < lval
-        lval = np.where(m, f, lval)
-        lbest = np.where(m[:, None], x, lbest)
-    i0 = int(np.argmin(lval))
-    gb_r, gv_r = lbest[i0], float(lval[i0])
-
+    U = _stream(pso, spec.dof, p, 7)
+    gb_k, gv_k = _run_injected(spec, problem, pso, fit, U, p, obstacles)
+    gb_r, gv_r, saw_penalty = _replay(spec, problem, pso, fit, U, p, obstacles)
     # The scene must actually reject some explored poses, or this test
     # proves nothing about the collision path.
     assert saw_penalty
@@ -490,102 +440,42 @@ def test_fused_replay_with_obstacles_matches_jnp_reference():
 
 @pytest.mark.parametrize("init_mode", ["uniform", "hybrid"])
 def test_fused_replay_init_modes_match_reference(init_mode):
-    # Same replay harness as test_fused_replay_matches_jnp_reference,
-    # but with the uniform / hybrid swarm init: slot 0 is the init
-    # position draw (U over the ±2π-clamped joint range), slot 1 the
-    # velocity draw; hybrid pins particle 0 to the warm anchor.
-    from ikpso_tpu.ops.fitness import fitness as jnp_fitness
-    from ikpso_tpu.ops.pallas_fitness import _pack_meta, _pack_swarm
-    from ikpso_tpu.pso.fused import fused_solve_raw
-
+    # Slot 0 is the init position draw (U over the ±2π-clamped joint
+    # range), slot 1 the velocity draw; hybrid pins particle 0 to the
+    # warm anchor.
     spec, problem = library.arm_7dof()
-    P, D, rows, L = 1024, spec.dof, 8, 128
-    iters = 3
-    pso = PSOConfig(
-        iterations=iters, inertia_mode="randomized", init_mode=init_mode
-    )
+    p = 256
+    pso = PSOConfig(iterations=3, inertia_mode="randomized", init_mode=init_mode)
     fit = FitnessConfig(angle_weight=0.0, distance_weight=0.0)
-
-    batched = _batched(problem, 1)
-    anchor_angles = fk_ops.pose_to_angles(spec, batched.pose)
-    anchor_positions = fk_ops.fk_points(spec, batched.pose, batched.origin)
-    meta = _pack_meta(spec, fit, None)
-    swarm = _pack_swarm(spec, batched, anchor_angles, anchor_positions)
-    limits = jnp.stack(
-        [spec.min_rotation[1:].reshape(-1), spec.max_rotation[1:].reshape(-1)]
-    )
-    seeds = jnp.zeros((1, 2), jnp.int32)
-    n_draws = 2 + 3 * iters
-    U = jax.random.uniform(
-        jax.random.key(7), (1, n_draws, D * rows, L), dtype=jnp.float32
-    )
-    gb_k, gv_k = fused_solve_raw(
-        spec, pso, fit, meta, swarm, limits, seeds, P, 0,
-        interpret=_interpret(), uniforms=U,
-    )
-    gb_k, gv_k = np.asarray(gb_k[0]), float(gv_k[0])
-
-    Un = np.asarray(U[0])
-
-    def to_pd(u):  # (D*rows, L) -> (P, D): particle p = row*L + lane
-        return u.reshape(D, rows, L).reshape(D, P).T
-
-    anchor = np.asarray(anchor_angles[0])
-    lo = np.asarray(spec.min_rotation[1:]).reshape(-1)
-    hi = np.asarray(spec.max_rotation[1:]).reshape(-1)
-    lo_c = np.maximum(lo, -2 * np.pi).astype(np.float32)
-    hi_c = np.minimum(hi, 2 * np.pi).astype(np.float32)
-    fit_fn = jax.jit(lambda x: jnp_fitness(spec, x, problem, config=fit))
-
-    x = (lo_c + to_pd(Un[0]) * (hi_c - lo_c)).astype(np.float32)
-    if init_mode == "hybrid":
-        x[0] = anchor
-    v = ((to_pd(Un[1]) * 2.0 - 1.0) * pso.init_velocity_scale).astype(
-        np.float32
-    )
-    lbest = x.copy()
-    lval = np.asarray(fit_fn(jnp.asarray(x)))
-    w, c1, c2 = (np.float32(pso.inertia), np.float32(pso.cognitive),
-                 np.float32(pso.social))
-    for it in range(iters):
-        gb = lbest[int(np.argmin(lval))]
-        base = 2 + 3 * it
-        u_c, u_s, u_w = to_pd(Un[base]), to_pd(Un[base + 1]), to_pd(Un[base + 2])
-        v = w * u_w * v + c1 * u_c * (lbest - x) + c2 * u_s * (gb[None] - x)
-        x = np.clip(x + v, lo, hi).astype(np.float32)
-        f = np.asarray(fit_fn(jnp.asarray(x)))
-        m = f < lval
-        lval = np.where(m, f, lval)
-        lbest = np.where(m[:, None], x, lbest)
-    i0 = int(np.argmin(lval))
-    gb_r, gv_r = lbest[i0], float(lval[i0])
-
+    U = _stream(pso, spec.dof, p, 7)
+    gb_k, gv_k = _run_injected(spec, problem, pso, fit, U, p)
+    gb_r, gv_r, _ = _replay(spec, problem, pso, fit, U, p)
     np.testing.assert_allclose(gb_k, gb_r, atol=5e-4)
     np.testing.assert_allclose(gv_k, gv_r, rtol=1e-3, atol=1e-5)
 
 
 def test_fused_solver_refuses_gjk_backend():
-    # No silent SAT fallback in the megakernel either (VERDICT r1 #3).
-    from ikpso_tpu.models.chain import Obstacles
+    # No silent SAT fallback in the megakernel.
+    from ikpso.models.chain import Obstacles
 
     spec, problem = library.planar_3dof()
     obstacles = Obstacles.from_boxes([(1.5, 0.5, 0.0)], [(1.0, 1.0, 1.0)])
     with pytest.raises(NotImplementedError, match="gjk"):
         make_fused_solver(
             spec, fit=FitnessConfig(collision_backend="gjk"),
-            obstacles=obstacles, interpret=_interpret(),
+            obstacles=obstacles, interpret=True,
         )
     # Obstacle-free configs never evaluate the backend.
     make_fused_solver(
-        spec, fit=FitnessConfig(collision_backend="gjk"), interpret=_interpret()
+        spec, fit=FitnessConfig(collision_backend="gjk"), interpret=True
     )
 
 
 def test_fused_solver_capsule_obstacles():
-    # Megakernel + capsule colliders: an obstacle wrapping the anchor's
-    # effector forces the collision penalty on the warm start; a far
-    # obstacle leaves the anchor's zero-fitness gbest intact.
-    from ikpso_tpu.models.chain import Obstacles
+    # Capsule colliders: a far obstacle leaves the anchor's
+    # zero-fitness gbest intact; one wrapping the whole arm penalizes
+    # every pose the swarm can reach.
+    from ikpso.models.chain import Obstacles
 
     spec, problem = library.arm_7dof()
     eff = fk_ops.effector_positions(spec, problem.pose, problem.origin)
@@ -596,34 +486,29 @@ def test_fused_solver_capsule_obstacles():
     far = Obstacles.from_boxes([(5.0, 5.0, 5.0)], [(0.5, 0.5, 0.5)])
     solver = make_fused_solver(
         spec, pso=PSOConfig(iterations=2), fit=fit, obstacles=far,
-        num_particles=1024, interpret=_interpret(),
+        num_particles=256, interpret=True,
     )
     res = solver(batched, jax.random.key(0))
     np.testing.assert_allclose(np.asarray(res.fitness), 0.0, atol=1e-9)
 
+    reach = float(np.abs(np.asarray(spec.length)).sum())
     wrap = Obstacles.from_boxes(
-        [np.asarray(eff[0], float).tolist()], [(0.3, 0.3, 0.3)]
+        [np.asarray(problem.origin, float).tolist()],
+        [(2 * reach, 2 * reach, 2 * reach)],
     )
     solver2 = make_fused_solver(
         spec, pso=PSOConfig(iterations=2), fit=fit, obstacles=wrap,
-        num_particles=1024, interpret=_interpret(),
+        num_particles=256, interpret=True,
     )
     res2 = solver2(batched, jax.random.key(0))
-    # Every particle stays near the colliding anchor in interpret mode
-    # (degenerate RNG), so gbest keeps the penalty.
     assert (np.asarray(res2.fitness) >= 1e30).all()
 
 
-@pytest.mark.skipif(
-    INTERPRET,
-    reason="129-DOF interpret-mode compile takes ~15 min on CPU; the "
-    "case runs on real TPU via bench.py --selftest (deep_chain_megakernel)",
-)
-def test_fused_deep_chain_multirow_output():
-    # dof > 127 packs the gbest result into multiple 128-lane rows per
-    # swarm (r2: the megakernel's dof cap removed). Anchor-exact
-    # targets must survive as gbest across the row boundary: fitness 0
-    # and angles == anchor for every one of the 129 DOF.
+@pytest.mark.gpu
+def test_fused_deep_chain_multirow_output(gpu):
+    # A 129-DOF chain: anchor-exact targets must survive as gbest for
+    # every one of the 129 DOF (the interpreter's compile of this
+    # kernel takes far too long on a CPU).
     spec, problem = library.snake(43)  # 129 DOF
     assert spec.dof == 129
     eff = fk_ops.effector_positions(spec, problem.pose, problem.origin)
@@ -634,152 +519,26 @@ def test_fused_deep_chain_multirow_output():
         pso=PSOConfig(iterations=2),
         fit=FitnessConfig(angle_weight=0.0),
         num_particles=128,
-        swarms_per_tile=8,
-        interpret=_interpret(),
     )
     res = solver(batched, jax.random.key(0))
     assert res.angles.shape == (8, 129)
-    np.testing.assert_allclose(np.asarray(res.fitness), 0.0, atol=1e-9)
+    assert float(np.asarray(res.fitness).max()) < 1e-7
     anchor = np.asarray(fk_ops.pose_to_angles(spec, problem.pose))
     np.testing.assert_allclose(
         np.asarray(res.angles), anchor[None].repeat(8, 0), atol=1e-6
     )
-    np.testing.assert_allclose(np.asarray(res.effector_error), 0.0, atol=1e-4)
 
 
 def test_fused_replay_humanoid_tree_matches_jnp_reference():
-    # The megakernel's in-kernel tree walk on a MULTI-LEVEL branching
-    # topology (two interior nodes with 3 children each — deeper than
-    # the reference_arm's single branch point, which was the only tree
-    # shape the kernel had been proven on; VERDICT r2 weak #2):
-    # injected-uniform replay against the jnp fitness oracle, same
-    # protocol as test_fused_replay_matches_jnp_reference.
-    from ikpso_tpu.ops.fitness import fitness as jnp_fitness
-    from ikpso_tpu.ops.pallas_fitness import _pack_meta, _pack_swarm
-    from ikpso_tpu.pso.fused import fused_solve_raw
-
+    # The in-kernel tree walk on a MULTI-LEVEL branching topology (two
+    # interior nodes with 3 children each).
     spec, problem = library.humanoid_45dof()
-    P, D, rows, L = 1024, spec.dof, 8, 128
-    assert D == 45 and spec.num_nodes == 16
-    iters = 2
-    pso = PSOConfig(iterations=iters, inertia_mode="randomized")
+    assert spec.dof == 45 and spec.num_nodes == 16
+    p = 128
+    pso = PSOConfig(iterations=2, inertia_mode="randomized")
     fit = FitnessConfig(angle_weight=0.0, distance_weight=0.0)
-
-    batched = _batched(problem, 1)
-    anchor_angles = fk_ops.pose_to_angles(spec, batched.pose)
-    anchor_positions = fk_ops.fk_points(spec, batched.pose, batched.origin)
-    meta = _pack_meta(spec, fit, None)
-    swarm = _pack_swarm(spec, batched, anchor_angles, anchor_positions)
-    limits = jnp.stack(
-        [spec.min_rotation[1:].reshape(-1), spec.max_rotation[1:].reshape(-1)]
-    )
-    seeds = jnp.zeros((1, 2), jnp.int32)
-    n_draws = 1 + 3 * iters
-    U = jax.random.uniform(
-        jax.random.key(11), (1, n_draws, D * rows, L), dtype=jnp.float32
-    )
-    gb_k, gv_k = fused_solve_raw(
-        spec, pso, fit, meta, swarm, limits, seeds, P, 0,
-        interpret=_interpret(), uniforms=U,
-    )
-    gb_k, gv_k = np.asarray(gb_k[0]), float(gv_k[0])
-
-    Un = np.asarray(U[0])
-
-    def to_pd(u):  # (D*rows, L) -> (P, D): particle p = row*L + lane
-        return u.reshape(D, rows, L).reshape(D, P).T
-
-    anchor = np.asarray(anchor_angles[0])
-    lo = np.asarray(spec.min_rotation[1:]).reshape(-1)
-    hi = np.asarray(spec.max_rotation[1:]).reshape(-1)
-    fit_fn = jax.jit(lambda x: jnp_fitness(spec, x, problem, config=fit))
-
-    x = np.tile(anchor, (P, 1)).astype(np.float32)
-    v = ((to_pd(Un[0]) * 2.0 - 1.0) * pso.init_velocity_scale).astype(
-        np.float32
-    )
-    lbest = x.copy()
-    lval = np.asarray(fit_fn(jnp.asarray(x)))
-    w, c1, c2 = (np.float32(pso.inertia), np.float32(pso.cognitive),
-                 np.float32(pso.social))
-    for it in range(iters):
-        gb = lbest[int(np.argmin(lval))]
-        base = 1 + 3 * it
-        u_c, u_s, u_w = (to_pd(Un[base]), to_pd(Un[base + 1]),
-                         to_pd(Un[base + 2]))
-        v = w * u_w * v + c1 * u_c * (lbest - x) + c2 * u_s * (gb[None] - x)
-        x = np.clip(x + v, lo, hi).astype(np.float32)
-        f = np.asarray(fit_fn(jnp.asarray(x)))
-        m = f < lval
-        lval = np.where(m, f, lval)
-        lbest = np.where(m[:, None], x, lbest)
-    i0 = int(np.argmin(lval))
-    gb_r, gv_r = lbest[i0], float(lval[i0])
-
+    U = _stream(pso, spec.dof, p, 11)
+    gb_k, gv_k = _run_injected(spec, problem, pso, fit, U, p)
+    gb_r, gv_r, _ = _replay(spec, problem, pso, fit, U, p)
     np.testing.assert_allclose(gb_k, gb_r, atol=5e-4)
     np.testing.assert_allclose(gv_k, gv_r, rtol=1e-3, atol=1e-5)
-
-
-def test_fused_rejects_oversized_tile():
-    spec, _ = library.snake(60)  # 180 DOF
-    with pytest.raises(ValueError, match="VMEM"):
-        make_fused_solver(
-            spec, num_particles=1024, swarms_per_tile=32,
-            interpret=_interpret(),
-        )
-
-
-def test_fused_const_mode_paths_bit_identical():
-    # The r4 hoisted-constant kernel (pso/fused.py const_mode="auto":
-    # clamp bounds as a constant-index VMEM input; per-swarm constant
-    # tiles by one-hot lane-select from a VMEM swarm block) must be
-    # BIT-identical to the r3 SMEM-scalar construction — the one-hot
-    # sum has exactly one nonzero term and the const path consumes no
-    # RNG draws, so with an injected uniform stream the two kernels
-    # trace the same arithmetic. Multi-swarm rows==1 config (sw=8,
-    # P=128) so the vectorized path is actually taken; distinct
-    # targets per swarm so the per-swarm constants actually differ.
-    from ikpso_tpu.ops.pallas_fitness import _pack_meta, _pack_swarm
-    from ikpso_tpu.pso.fused import fused_solve_raw
-
-    spec, problem = library.arm_7dof()
-    S, P, D, L = 8, 128, spec.dof, 128
-    rows = P // L
-    assert rows == 1
-    iters = 3
-    pso = PSOConfig(iterations=iters, inertia_mode="randomized")
-    fit = FitnessConfig(angle_weight=0.0, distance_weight=0.0)
-
-    jitter = jax.random.normal(
-        jax.random.key(3), (S,) + problem.targets.shape, dtype=jnp.float32
-    ) * 0.1
-    batched = library.batched_problem(problem, problem.targets[None] + jitter)
-    anchor_angles = fk_ops.pose_to_angles(spec, batched.pose)
-    anchor_positions = fk_ops.fk_points(spec, batched.pose, batched.origin)
-    meta = _pack_meta(spec, fit, None)
-    swarm = _pack_swarm(spec, batched, anchor_angles, anchor_positions)
-    limits = jnp.stack(
-        [spec.min_rotation[1:].reshape(-1), spec.max_rotation[1:].reshape(-1)]
-    )
-    seeds = jnp.zeros((S, 2), jnp.int32)
-    n_draws = 1 + 3 * iters
-    U = jax.random.uniform(
-        jax.random.key(13), (1, n_draws, D * S * rows, L), dtype=jnp.float32
-    )
-    out = {}
-    for mode in ("auto", "scalar"):
-        gb, gv = fused_solve_raw(
-            spec, pso, fit, meta, swarm, limits, seeds, P, 0,
-            interpret=_interpret(), uniforms=U, swarms_per_tile=S,
-            const_mode=mode,
-        )
-        out[mode] = (np.asarray(gb), np.asarray(gv))
-    assert (
-        out["auto"][0].view(np.int32) == out["scalar"][0].view(np.int32)
-    ).all()
-    assert (
-        out["auto"][1].view(np.int32) == out["scalar"][1].view(np.int32)
-    ).all()
-    # And the swarms genuinely differ (distinct targets -> distinct
-    # gbests), or the per-swarm-constant path proved nothing.
-    assert len({tuple(r) for r in out["auto"][0].round(4)}) > 1

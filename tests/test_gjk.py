@@ -4,15 +4,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ikpso_tpu.ops.collision import obb_obb_intersect
-from ikpso_tpu.ops.gjk import (
+from ikpso.ops.collision import obb_obb_intersect
+from ikpso.ops.gjk import (
     box_support,
     capsule_support,
     gjk_box_box,
     gjk_intersect,
     sphere_support,
 )
-from ikpso_tpu.ops.rotations import euler_xyz_to_matrix
+from ikpso.ops.rotations import euler_xyz_to_matrix
 
 EYE = jnp.eye(3, dtype=jnp.float32)
 

@@ -5,8 +5,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from ikpso_tpu.ops.fitness import COLLISION_PENALTY
-from ikpso_tpu.utils.guards import SolveDivergedError, check_solve_result
+from ikpso.ops.fitness import COLLISION_PENALTY
+from ikpso.utils.guards import SolveDivergedError, check_solve_result
 
 
 @dataclasses.dataclass

@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ikpso_tpu.models import library
-from ikpso_tpu.ops import fk as fk_ops
-from ikpso_tpu.ops.jacobian import ancestry_mask, fk_with_jacobian
-from ikpso_tpu.pso.polish import _residual_fn
+from ikpso.models import library
+from ikpso.ops import fk as fk_ops
+from ikpso.ops.jacobian import ancestry_mask, fk_with_jacobian
+from ikpso.pso.polish import _residual_fn
 
 
 def _random_setup(spec, problem, key, s):
@@ -69,7 +69,7 @@ def test_orientation_jacobian_matches_jacfwd_at_alignment():
     )
     pos, rot = fk_ops.fk(spec, pose, problem.origin)
     eff = list(spec.effector_idx)
-    from ikpso_tpu.ops.rotations import matrix_to_quaternion, quaternion_to_euler_xyz
+    from ikpso.ops.rotations import matrix_to_quaternion, quaternion_to_euler_xyz
 
     batched = library.batched_problem(
         problem,

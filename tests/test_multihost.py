@@ -2,14 +2,15 @@
 
 The reference is single-process/single-GPU (SURVEY.md §2.5 / §5
 "communication backend: none"); BASELINE config 5 requires a 10k
-waypoint sweep across a multi-host pod slice. This test runs the REAL
+waypoint sweep across several hosts. This test runs the REAL
 multi-process runtime on one machine: two OS processes, each with 4
 virtual CPU devices, joined through a local coordinator — the same
-code path a Cloud TPU pod runs, with DCN replaced by localhost gRPC.
+code path a multi-host cluster runs, with its network replaced by
+localhost gRPC.
 
 Each process solves its contiguous waypoint block on its local
 devices and the results merge with ``multihost_utils.process_allgather``
-(ikpso_tpu.parallel.distributed.sweep_waypoints_multihost).
+(ikpso.parallel.distributed.sweep_waypoints_multihost).
 """
 
 import json
@@ -31,7 +32,7 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 4)
 
 pid, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-from ikpso_tpu.parallel import distributed
+from ikpso.parallel import distributed
 
 distributed.initialize(f"localhost:{{port}}", num_processes=2, process_id=pid)
 assert jax.process_count() == 2, jax.process_count()
@@ -39,9 +40,9 @@ assert len(jax.local_devices()) == 4
 assert len(jax.devices()) == 8
 
 import numpy as np
-from ikpso_tpu.models import library
-from ikpso_tpu.ops.fitness import FitnessConfig
-from ikpso_tpu.pso.config import PSOConfig
+from ikpso.models import library
+from ikpso.ops.fitness import FitnessConfig
+from ikpso.pso.config import PSOConfig
 
 spec, problem = library.planar_3dof()
 rng = np.random.default_rng(0)

@@ -10,9 +10,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ikpso_tpu import native
-from ikpso_tpu.models import library
-from ikpso_tpu.ops import fk as fk_ops
+from ikpso import native
+from ikpso.models import library
+from ikpso.ops import fk as fk_ops
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason=f"native runtime unavailable: {native.load_error()}"
@@ -54,7 +54,7 @@ def test_native_fk_matches_jax_fk(rng):
 
 
 def test_native_effector_error_is_oracle(rng):
-    from ikpso_tpu.ops.fitness import true_effector_error
+    from ikpso.ops.fitness import true_effector_error
 
     spec, problem = library.reference_arm()
     tree = native.tree_from_chain_spec(spec)
@@ -75,7 +75,7 @@ def test_fk_batch(rng):
 
 
 def test_native_diagnostics_schema(tmp_path):
-    from ikpso_tpu.utils.diagnostics import DiagnosticsWriter
+    from ikpso.utils.diagnostics import DiagnosticsWriter
 
     angles = np.asarray([0.25, -1.5, 3.0])
     positions = np.asarray([1.0, 2.0, 3.0, 4.0, 5.0, 6.0])

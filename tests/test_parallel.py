@@ -4,12 +4,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ikpso_tpu.models import library
-from ikpso_tpu.ops.fitness import FitnessConfig
-from ikpso_tpu.parallel.mesh import hybrid_mesh, make_mesh, swarm_mesh
-from ikpso_tpu.parallel.sharded import distributed_argmin, solve_sharded
-from ikpso_tpu.pso.config import PSOConfig
-from ikpso_tpu.pso.solver import solve
+from ikpso.models import library
+from ikpso.ops.fitness import FitnessConfig
+from ikpso.parallel.mesh import hybrid_mesh, make_mesh, swarm_mesh
+from ikpso.parallel.sharded import distributed_argmin, solve_sharded
+from ikpso.pso.config import PSOConfig
+from ikpso.pso.solver import solve
 
 
 def _batched(problem, s):
@@ -117,8 +117,8 @@ def test_sharded_solver_composes_with_polish():
     # is batched over the swarm axis, so under jit it inherits the
     # sharding with zero cross-device communication and must not
     # regress any swarm (the accept gate).
-    from ikpso_tpu.parallel.sharded import make_sharded_solver
-    from ikpso_tpu.pso.polish import wrap_with_polish
+    from ikpso.parallel.sharded import make_sharded_solver
+    from ikpso.pso.polish import wrap_with_polish
 
     spec, problem = library.arm_7dof()
     s = 16
@@ -129,7 +129,7 @@ def test_sharded_solver_composes_with_polish():
         key, (s, spec.dof), minval=0.8 * lo, maxval=0.8 * hi,
         dtype=jnp.float32,
     )
-    from ikpso_tpu.ops import fk as fk_ops
+    from ikpso.ops import fk as fk_ops
 
     pose = fk_ops.angles_to_pose(
         spec, jnp.broadcast_to(problem.pose[0], (s, 3)), rand
@@ -156,20 +156,16 @@ def test_sharded_solver_composes_with_polish():
 
 
 def test_fused_solver_on_swarm_mesh_matches_unsharded():
-    # The fused megakernel under shard_map (VERDICT r1 #1): the Pallas
-    # pallas_call runs inside each shard's program. In interpret mode
-    # the core PRNG is stubbed to zeros, so the solve is a deterministic
-    # function of the per-swarm constants — the 8-way sharded result
-    # must equal the unsharded fused solve bit-for-bit, proving the
-    # seam (packing, grid split, result unpacking) is shard-invariant.
+    # The megakernel under shard_map: the pallas_call runs inside each
+    # shard's program (interpret mode here). Each shard folds its
+    # index into the key (solve_sharded), so the sharded solve must
+    # equal, bit for bit, the unsharded solves of each shard's slice
+    # with that shard's key — the seam (packing, grid split, result
+    # unpacking) is shard-invariant.
     import pytest
-    from jax.experimental.pallas import tpu as pltpu
 
-    from ikpso_tpu.pso.fused import make_fused_solver
+    from ikpso.pso.fused import make_fused_solver
 
-    interpret = (
-        pltpu.InterpretParams() if jax.devices()[0].platform != "tpu" else False
-    )
     spec, problem = library.arm_7dof()
     s = 16
     # Distinct targets per swarm so shard placement actually matters.
@@ -178,52 +174,53 @@ def test_fused_solver_on_swarm_mesh_matches_unsharded():
     targets = jnp.broadcast_to(problem.targets, (s,) + problem.targets.shape) + offs
     batched = library.batched_problem(problem, targets)
     mesh = swarm_mesh()
+    n = mesh.shape["swarm"]
 
     kw = dict(
         pso=PSOConfig(iterations=8),
         fit=FitnessConfig(angle_weight=0.0),
-        num_particles=512,
-        swarms_per_tile=2,
+        num_particles=128,
     )
     res_mesh = solve_sharded(
-        spec, batched, key, mesh, impl="fused", interpret=interpret, **kw
+        spec, batched, key, mesh, impl="fused", interpret=True, **kw
     )
-    res_local = make_fused_solver(spec, interpret=interpret, **kw)(batched, key)
     assert res_mesh.angles.shape == (s, spec.dof)
-    np.testing.assert_array_equal(
-        np.asarray(res_mesh.angles), np.asarray(res_local.angles)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(res_mesh.fitness), np.asarray(res_local.fitness)
-    )
+    local = make_fused_solver(spec, interpret=True, **kw)
+    per = s // n
+    for i in range(n):
+        part = jax.tree.map(lambda x: x[i * per:(i + 1) * per], batched)
+        r = local(part, jax.random.fold_in(key, i))
+        np.testing.assert_array_equal(
+            np.asarray(res_mesh.angles)[i * per:(i + 1) * per],
+            np.asarray(r.angles),
+        )
+        np.testing.assert_array_equal(
+            np.asarray(res_mesh.fitness)[i * per:(i + 1) * per],
+            np.asarray(r.fitness),
+        )
 
     # Particle-axis sharding is jnp-only; the fused path must refuse it
     # loudly rather than silently mis-reduce.
     with pytest.raises(ValueError, match="fused"):
         solve_sharded(
             spec, batched, key, make_mesh((8,), ("particle",)),
-            impl="fused", interpret=interpret, **kw
+            impl="fused", interpret=True, **kw
         )
 
 
 def test_fused_solver_on_hybrid_swarm_mesh_with_obstacles():
-    # Fused + mesh + obstacles + orientation in one program: the widest
-    # kernel configuration under shard_map (VERDICT r1 #1/#8).
-    from jax.experimental.pallas import tpu as pltpu
+    # Megakernel + mesh + obstacles + orientation in one program: the
+    # widest kernel configuration under shard_map.
+    from ikpso.models.chain import Obstacles
+    from ikpso.ops import fk as fk_ops
 
-    from ikpso_tpu.models.chain import Obstacles
-    from ikpso_tpu.ops import fk as fk_ops
-
-    interpret = (
-        pltpu.InterpretParams() if jax.devices()[0].platform != "tpu" else False
-    )
     spec, problem = library.arm_7dof()
     s = 8
     targets = jnp.broadcast_to(problem.targets, (s,) + problem.targets.shape)
     world_rot = fk_ops.fk(spec, problem.pose, problem.origin)[1][
         np.array(spec.effector_idx)
     ]
-    from ikpso_tpu.ops.rotations import matrix_to_quaternion, quaternion_to_euler_xyz
+    from ikpso.ops.rotations import matrix_to_quaternion, quaternion_to_euler_xyz
 
     target_rot = jnp.broadcast_to(
         quaternion_to_euler_xyz(matrix_to_quaternion(world_rot)),
@@ -235,10 +232,10 @@ def test_fused_solver_on_hybrid_swarm_mesh_with_obstacles():
     )
     res = solve_sharded(
         spec, batched, jax.random.key(0), swarm_mesh(),
-        impl="fused", interpret=interpret,
+        impl="fused", interpret=True,
         pso=PSOConfig(iterations=8),
         fit=FitnessConfig(angle_weight=0.0, orientation_weight=1.0),
-        obstacles=obstacles, num_particles=1024, swarms_per_tile=1,
+        obstacles=obstacles, num_particles=256,
     )
     assert res.angles.shape == (s, spec.dof)
     assert np.isfinite(np.asarray(res.fitness)).all()
@@ -253,7 +250,7 @@ def test_track_trajectories_on_swarm_mesh():
     # solve_sharded), so trajectories differ from the unsharded run
     # stream-wise — the contract is equal tracking QUALITY with the
     # scan chain intact per shard.
-    from ikpso_tpu.harness.trajectory import circle_paths, track_trajectories
+    from ikpso.harness.trajectory import circle_paths, track_trajectories
 
     spec, problem = library.arm_7dof()
     path = circle_paths(

@@ -11,7 +11,7 @@ data the reports were computed from.
 import numpy as np
 import pytest
 
-from ikpso_tpu.harness.parity import (
+from ikpso.harness.parity import (
     bootstrap_mean_diff_ci,
     compare_distributions,
     ks_2samp,

@@ -11,14 +11,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ikpso_tpu.models import library
-from ikpso_tpu.models.chain import IKProblem
-from ikpso_tpu.ops import fk as fk_ops
-from ikpso_tpu.ops.fitness import FitnessConfig, true_effector_error
-from ikpso_tpu.ops.rotations import euler_xyz_to_matrix
-from ikpso_tpu.pso.config import PSOConfig
-from ikpso_tpu.pso.polish import polish_angles, wrap_with_polish
-from ikpso_tpu.pso.solver import make_solver
+from ikpso.models import library
+from ikpso.models.chain import IKProblem
+from ikpso.ops import fk as fk_ops
+from ikpso.ops.fitness import FitnessConfig, true_effector_error
+from ikpso.ops.rotations import euler_xyz_to_matrix
+from ikpso.pso.config import PSOConfig
+from ikpso.pso.polish import polish_angles, wrap_with_polish
+from ikpso.pso.solver import make_solver
 
 
 def _perturbed_batch(spec, problem, key, s, scale):
@@ -131,7 +131,7 @@ def test_polish_orientation_targets():
     )
     pos, rot = fk_ops.fk(spec, pose, problem.origin)
     eff = list(spec.effector_idx)
-    from ikpso_tpu.ops.rotations import matrix_to_quaternion, quaternion_to_euler_xyz
+    from ikpso.ops.rotations import matrix_to_quaternion, quaternion_to_euler_xyz
 
     batched = library.batched_problem(
         problem,
@@ -184,7 +184,7 @@ def test_polish_locality_rows_keep_motion_small():
     # fitness term: the polished point stays near the anchor pose at
     # some cost in position error, and the combined residual cost
     # never regresses.
-    from ikpso_tpu.pso.polish import residual_cost
+    from ikpso.pso.polish import residual_cost
 
     spec, problem = library.arm_7dof()
     batched, _ = _perturbed_batch(
@@ -208,8 +208,8 @@ def test_soa_path_matches_general_path():
     # polish_angles dispatches position-only polish to the SoA core;
     # it must match the general tensor path (forced via a degenerate
     # locality weight of 0 through the internal API) to float rounding.
-    import ikpso_tpu.pso.polish as polish_mod
-    from ikpso_tpu.pso.polish_soa import polish_angles_soa
+    import ikpso.pso.polish as polish_mod
+    from ikpso.pso.polish_soa import polish_angles_soa
 
     for model in ("arm_7dof", "reference_arm", "dual_arm_14dof"):
         spec, problem = getattr(library, model)()
@@ -235,8 +235,8 @@ def test_polish_gate_rejects_colliding_refinement():
     # The LM objective is blind to obstacles; with obstacles passed to
     # wrap_with_polish the accept gate must reject a polished pose
     # that enters a collider, keeping the feasible PSO answer.
-    from ikpso_tpu.models.chain import Obstacles
-    from ikpso_tpu.pso.solver import SolveResult
+    from ikpso.models.chain import Obstacles
+    from ikpso.pso.solver import SolveResult
 
     spec, problem = library.planar_3dof(target=(2.5, 0.0, 0.0))
     # A box sitting on the target: reaching closer collides the
@@ -265,7 +265,7 @@ def test_polish_gate_rejects_colliding_refinement():
             effector_error=err, trace=err[None],
         )
 
-    from ikpso_tpu.pso.polish import wrap_with_polish
+    from ikpso.pso.polish import wrap_with_polish
 
     free = wrap_with_polish(fake_solver, spec, steps=5)(
         batched, jax.random.key(0)
@@ -289,9 +289,9 @@ def test_soa_locality_matches_general_path():
     # use the unprojected gradient + clip). One step from identical
     # starts agrees to float rounding; multi-step runs agree on the
     # combined cost they minimize.
-    import ikpso_tpu.pso.polish as polish_mod
-    from ikpso_tpu.pso.polish import residual_cost
-    from ikpso_tpu.pso.polish_soa import polish_angles_soa
+    import ikpso.pso.polish as polish_mod
+    from ikpso.pso.polish import residual_cost
+    from ikpso.pso.polish_soa import polish_angles_soa
 
     for model in ("arm_7dof", "reference_arm"):
         spec, problem = getattr(library, model)()
@@ -330,9 +330,9 @@ def test_soa_locality_matches_general_path():
 def test_soa_orientation_matches_general_path():
     # Orientation rows in the SoA core (world rotation-vector residual
     # + joint-axis Jacobian rows) vs the general tensor path.
-    import ikpso_tpu.pso.polish as polish_mod
-    from ikpso_tpu.pso.polish_soa import polish_angles_soa
-    from ikpso_tpu.ops.rotations import (
+    import ikpso.pso.polish as polish_mod
+    from ikpso.pso.polish_soa import polish_angles_soa
+    from ikpso.ops.rotations import (
         matrix_to_quaternion, quaternion_to_euler_xyz,
     )
 
@@ -387,12 +387,11 @@ def test_soa_orientation_matches_general_path():
 
 def test_soa_routing_gate():
     # Every zoo model must land on the measured-correct LM path:
-    # snakes at ANY depth stay SoA (routing snake:50 to the tensor
-    # path measured a 3.2x bench regression, r3), while the wide
+    # snakes at ANY depth stay SoA, while the wide
     # multi-effector humanoid must NOT trace the SoA core (>22 GB of
     # tracer state). Pins the m^2*D gate against future re-tuning.
-    from ikpso_tpu.models import library
-    from ikpso_tpu.pso.polish import soa_traceable
+    from ikpso.models import library
+    from ikpso.pso.polish import soa_traceable
 
     for name, orient, want_soa in [
         ("arm_7dof", False, True),

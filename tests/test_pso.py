@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ikpso_tpu.models import library
-from ikpso_tpu.ops import fk as fk_ops
-from ikpso_tpu.ops.fitness import FitnessConfig
-from ikpso_tpu.pso.config import PSOConfig
-from ikpso_tpu.pso.solver import make_solver, solve, solve_single
+from ikpso.models import library
+from ikpso.ops import fk as fk_ops
+from ikpso.ops.fitness import FitnessConfig
+from ikpso.pso.config import PSOConfig
+from ikpso.pso.solver import make_solver, solve, solve_single
 
 
 def _single(problem):
@@ -88,7 +88,7 @@ def test_hybrid_init_semantics():
     # Anchor-perfect problem: the warm particle 0 is exact (fitness 0)
     # and must be the returned gbest.
     spec2, problem2 = library.planar_3dof()
-    from ikpso_tpu.ops import fk as fk_ops
+    from ikpso.ops import fk as fk_ops
 
     anchor_targets = fk_ops.fk_points(spec2, problem2.pose, problem2.origin)[
         np.array(spec2.effector_idx)
@@ -197,7 +197,7 @@ def test_orientation_target_solving():
     # 6-DOF arm with orientation cost: final orientation should be
     # closer to the target than without the cost.
     spec, problem = library.arm_6dof(target=(1.0, 0.8, 0.3), target_rot=(0.0, 0.0, 0.8))
-    from ikpso_tpu.ops.rotations import euler_xyz_to_matrix
+    from ikpso.ops.rotations import euler_xyz_to_matrix
 
     def orient_err(res):
         _, rots = fk_ops.fk(spec, res.pose, problem.origin)
@@ -258,7 +258,7 @@ def test_rekick_overwrites_velocity_memory():
     # incoming velocity (the kick replaces it before the update); on a
     # non-kick iteration, different velocities must yield different
     # results. PSOConfig.rekick_interval semantics.
-    from ikpso_tpu.pso.solver import pso_iteration
+    from ikpso.pso.solver import pso_iteration
 
     spec, problem = library.arm_7dof()
     d = spec.dof
@@ -331,7 +331,7 @@ def test_rekick_threshold_selective():
     # identical regardless of incoming velocity memory only when
     # kicked — so here the incoming velocity must matter), while
     # above-threshold swarms must be kicked (velocity independent).
-    from ikpso_tpu.pso.solver import pso_iteration
+    from ikpso.pso.solver import pso_iteration
 
     spec, _ = library.arm_7dof()
     d = spec.dof
@@ -368,7 +368,7 @@ def test_snake_30dof_converges_with_polish():
     # the LM polish drives the redundant chain to sub-mm — topology is
     # runtime data here, vs the reference's compile-time DOF
     # (reference ik_constants.h:3).
-    from ikpso_tpu.pso.polish import wrap_with_polish
+    from ikpso.pso.polish import wrap_with_polish
 
     spec, problem = library.snake_30dof()
     assert spec.dof == 30
@@ -419,7 +419,7 @@ def test_humanoid_tree_solving():
     # effector positions to the bent-pose targets, warm re-solve per
     # step, LM polish finishing each. 12 steps cover the 5.3-unit
     # total displacement to float rounding (~1e-6).
-    from ikpso_tpu.harness.trajectory import follow_targets
+    from ikpso.harness.trajectory import follow_targets
 
     start = np.asarray(fk_ops.fk_points(spec, problem.pose, problem.origin))[
         np.asarray(list(spec.effector_idx))

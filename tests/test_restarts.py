@@ -1,14 +1,14 @@
-"""Retry-on-failure wrapper (ikpso_tpu.pso.restarts)."""
+"""Retry-on-failure wrapper (ikpso.pso.restarts)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ikpso_tpu.models import library
-from ikpso_tpu.ops.fitness import FitnessConfig
-from ikpso_tpu.pso.config import PSOConfig
-from ikpso_tpu.pso.restarts import make_retry_solver, solve_with_retries
-from ikpso_tpu.pso.solver import make_solver
+from ikpso.models import library
+from ikpso.ops.fitness import FitnessConfig
+from ikpso.pso.config import PSOConfig
+from ikpso.pso.restarts import make_retry_solver, solve_with_retries
+from ikpso.pso.solver import make_solver
 
 
 def _setup(s=12):
@@ -59,7 +59,7 @@ def test_retry_noop_when_all_converged():
 
 
 def test_topk_retry_is_jitted_and_rescues():
-    from ikpso_tpu.pso.restarts import make_topk_retry_solver
+    from ikpso.pso.restarts import make_topk_retry_solver
 
     spec, batched = _setup(s=12)
     fit = FitnessConfig(angle_weight=0.0)
@@ -84,7 +84,7 @@ def test_topk_retry_is_jitted_and_rescues():
 
 
 def test_topk_retry_keeps_converged_rows_bit_stable():
-    from ikpso_tpu.pso.restarts import make_topk_retry_solver
+    from ikpso.pso.restarts import make_topk_retry_solver
 
     spec, batched = _setup(s=6)
     fit = FitnessConfig(angle_weight=0.0)
@@ -123,8 +123,8 @@ def test_retry_bucket_padding_and_chunking():
 
 def test_wrap_with_topk_retries_builder_and_bucket_alignment():
     # The builder constructs base + diverse-init retry solvers from one
-    # build() and aligns the bucket up to the tile packing.
-    from ikpso_tpu.pso.restarts import wrap_with_topk_retries
+    # build(); an odd bucket size is used as given.
+    from ikpso.pso.restarts import wrap_with_topk_retries
 
     spec, batched = _setup(s=8)
     fit = FitnessConfig(angle_weight=0.0)
@@ -137,7 +137,6 @@ def test_wrap_with_topk_retries_builder_and_bucket_alignment():
     pso = PSOConfig(iterations=4)
     solver = wrap_with_topk_retries(
         build, pso, rounds=2, bucket=3, retry_init_mode="uniform",
-        swarms_per_tile=4,
     )
     # Two solvers built: warm base + uniform retry.
     assert built_inits == ["warm", "uniform"]
@@ -166,10 +165,10 @@ def test_wrap_with_topk_retries_deep_retry_budget():
     # retry_iterations deepens only the retry rounds' solver: the base
     # stays at the short budget, the retry solver gets the long one
     # (and drops a now-indivisible rekick interval).
-    from ikpso_tpu.models import library
-    from ikpso_tpu.ops.fitness import FitnessConfig
-    from ikpso_tpu.pso.restarts import wrap_with_topk_retries
-    from ikpso_tpu.pso.solver import make_solver
+    from ikpso.models import library
+    from ikpso.ops.fitness import FitnessConfig
+    from ikpso.pso.restarts import wrap_with_topk_retries
+    from ikpso.pso.solver import make_solver
 
     spec, problem = library.planar_3dof()
     batched = library.batched_problem(
@@ -199,7 +198,7 @@ def test_target_walk_solver_beats_single_shot():
     # The W-step warm target walk (the reference's own per-frame
     # protocol, Main.cpp:222-227, as one jitted scan) reaches far
     # targets a single warm solve of the same per-step budget misses.
-    from ikpso_tpu.pso.restarts import wrap_solver_with_target_walk
+    from ikpso.pso.restarts import wrap_solver_with_target_walk
 
     spec, batched = _setup(s=12)
     fit = FitnessConfig(angle_weight=0.0)
@@ -226,7 +225,7 @@ def test_wrap_with_topk_retries_walk_mode():
     # retry_walk_steps: the retry rounds run the warm target walk (and
     # the diverse retry init is ignored — the walk needs its warm
     # start), improving the failed bucket monotonically.
-    from ikpso_tpu.pso.restarts import wrap_with_topk_retries
+    from ikpso.pso.restarts import wrap_with_topk_retries
 
     spec, batched = _setup(s=8)
     fit = FitnessConfig(angle_weight=0.0)
@@ -262,7 +261,7 @@ def test_wrap_with_topk_retries_walk_mode():
     # Guard rails: walk without spec, or a degenerate step count.
     import pytest
 
-    from ikpso_tpu.pso.restarts import wrap_solver_with_target_walk
+    from ikpso.pso.restarts import wrap_solver_with_target_walk
 
     with pytest.raises(ValueError, match="spec"):
         wrap_with_topk_retries(
@@ -276,7 +275,7 @@ def test_retry_bucket_decay_schedule():
     # bucket_decay shrinks the per-round bucket geometrically (floored
     # at min(bucket, 1024) and tile-aligned); behavior stays monotone
     # and rounds still rescue failures.
-    from ikpso_tpu.pso.restarts import (
+    from ikpso.pso.restarts import (
         make_topk_retry_solver,
         wrap_with_topk_retries,
     )
@@ -291,7 +290,7 @@ def test_retry_bucket_decay_schedule():
     base_err = np.asarray(build(pso)(batched, jax.random.key(6)).effector_error)
     solver = wrap_with_topk_retries(
         build, pso, rounds=3, bucket=8, bucket_decay=2,
-        retry_iterations=60, swarms_per_tile=1,
+        retry_iterations=60,
     )
     res = solver(batched, jax.random.key(6))
     err = np.asarray(res.effector_error)
@@ -311,9 +310,9 @@ def test_topk_retry_starts_from_current_best_pose():
     # retry_start="best" (OPT-IN; measured-regression default is
     # "problem" — see restarts.py) must hand the retry round the
     # CURRENT best pose for the worst rows.
-    from ikpso_tpu.pso.restarts import make_topk_retry_solver
+    from ikpso.pso.restarts import make_topk_retry_solver
 
-    from ikpso_tpu.pso.solver import SolveResult
+    from ikpso.pso.solver import SolveResult
 
     spec, batched = _setup(s=6)
     fit = FitnessConfig(angle_weight=0.0)
@@ -365,13 +364,13 @@ def test_topk_retry_starts_from_current_best_pose():
 def test_walk_retry_keeps_original_pose_and_jitter_varies_path():
     # Walk retries must start from the ORIGINAL warm pose
     # (retry_start="problem"): from-best walks anchor inside the
-    # failed basin (r5 humanoid regression). Jitter varies the path
+    # failed basin. Jitter varies the path
     # per key while keeping the final step exact at the true targets.
-    from ikpso_tpu.pso.restarts import (
+    from ikpso.pso.restarts import (
         make_topk_retry_solver,
         wrap_solver_with_target_walk,
     )
-    from ikpso_tpu.pso.solver import SolveResult
+    from ikpso.pso.solver import SolveResult
 
     spec, batched = _setup(s=6)
     fit = FitnessConfig(angle_weight=0.0)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from ikpso_tpu.ops import rotations as rot
+from ikpso.ops import rotations as rot
 
 from oracle import mat_identity, mat_rotate_euler
 
